@@ -1,4 +1,4 @@
-"""Canonical flow, the reference's simple_example.cpp on TPU
+"""Canonical flow, the reference's simple_example.cpp
 (reference: PFAC/test/simple_example.cpp:49-123):
 
 create handle -> load pattern file -> dump transition table ->

@@ -1,6 +1,6 @@
-"""pfac-tpu: TPU-native exact multi-pattern matching (Parallel Failureless
-Aho-Corasick), a ground-up JAX/XLA/Pallas re-design of the capabilities of
-the PFAC CUDA library.
+"""pfac-tpu: exact multi-pattern matching (Parallel Failureless
+Aho-Corasick) for NVIDIA GPUs, a JAX/XLA/Pallas rebuild of the
+capabilities of the PFAC CUDA library.
 
 Two API surfaces:
 

@@ -1,9 +1,9 @@
 """ctypes bindings for the native host compiler (native/pfac_host.cpp).
 
-The C++ library accelerates the two build-time hot loops — pattern
-compilation (parse/sort/trie) and the CHD displacement search — while the
-pure-Python implementations in parser.py/trie.py/chd.py remain the
-behavioral oracle; tests assert bit-identical outputs.
+The C++ library accelerates the build-time hot loop — pattern
+compilation (parse/sort/trie) — while the pure-Python implementations in
+parser.py/trie.py remain the behavioral oracle; tests assert
+bit-identical outputs.
 
 The shared library is built on demand with g++ (no pip deps). If the
 toolchain or build is unavailable, everything transparently falls back to
@@ -68,20 +68,13 @@ def _load():
             # ABI gate FIRST: a stale prebuilt .so (mtime >= source but an
             # old ABI) must fall back to Python, not raise AttributeError
             # out of the transparent-fallback contract when binding symbols
-            # the old ABI lacks (e.g. chd_assign_fused, ABI v2+).
+            # the old ABI lacks.
             lib.pfac_host_abi_version.restype = ctypes.c_int
-            if lib.pfac_host_abi_version() != 2:
+            if lib.pfac_host_abi_version() != 3:
                 return None
             lib.pfac_compile.restype = ctypes.POINTER(_CompileResult)
             lib.pfac_compile.argtypes = [ctypes.c_char_p, ctypes.c_int64]
             lib.pfac_compile_free.argtypes = [ctypes.POINTER(_CompileResult)]
-            lib.chd_assign.restype = ctypes.c_int
-            lib.chd_assign_fused.restype = ctypes.c_int
-            lib.chd_assign_fused.argtypes = lib.chd_assign.argtypes = [
-                ctypes.POINTER(ctypes.c_uint32), ctypes.c_int64,
-                ctypes.c_int32, ctypes.c_int32, ctypes.c_uint32,
-                ctypes.POINTER(ctypes.c_uint16), ctypes.POINTER(ctypes.c_int32),
-            ]
         except AttributeError:
             return None
         return lib
@@ -121,24 +114,3 @@ def compile_patterns(data: bytes):
     finally:
         lib.pfac_compile_free(res)
 
-
-def chd_assign(keys: np.ndarray, r: int, b: int, slot_mul: int,
-               fused: bool = False):
-    """Native CHD displacement search; returns (disp, slot_of) or None
-    (None also signals 'infeasible for this (r, b, salt)')."""
-    lib = _load()
-    if lib is None or (fused and not hasattr(lib, "chd_assign_fused")):
-        return NotImplemented  # caller falls back to Python
-    keys = np.ascontiguousarray(keys, dtype=np.uint32)
-    disp = np.zeros(b, dtype=np.uint16)
-    slot_of = np.zeros(keys.shape[0], dtype=np.int32)
-    fn = lib.chd_assign_fused if fused else lib.chd_assign
-    rc = fn(
-        keys.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
-        keys.shape[0], r, b, ctypes.c_uint32(slot_mul),
-        disp.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)),
-        slot_of.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-    )
-    if rc != 0:
-        return None
-    return disp, slot_of.astype(np.int64)

@@ -15,11 +15,9 @@ Reference behavior being reproduced:
   initial state (reference: PFAC/src/PFAC.cpp:422-648,
   PFAC/include/PFAC_P.h:56-91).
 
-TPU-first note: on TPU the hash table is the *fast-path* encoding — at
-~1/50th the dense size it fits in VMEM for realistic rule sets, so the
-Pallas kernel can keep the whole automaton on-chip. The dense table is
-retained for API parity, for the XLA gather backend, and because its
-device variant (trap remapped to state 0, see backends/) gives the
+Both encodings run on the device (backends/): the hash table at ~1/50th
+the dense size, the dense table with one gather per step. Their device
+variants remap trap to state 0 (see backends/xla.py), which gives the
 branch-free inner loop.
 """
 from __future__ import annotations

@@ -1,10 +1,12 @@
 """Multi-host process-group glue.
 
 The reference has no multi-node story at all (SURVEY.md §2.4); this is the
-TPU-native one: `jax.distributed.initialize` builds the process group over
-DCN, every process contributes its local chips to one global mesh, and the
-jitted sharded matcher from dist/sharding.py runs unchanged — XLA routes
-ppermute/psum over ICI within a host and DCN across hosts.
+JAX one: `jax.distributed.initialize` builds the process group, with ONE
+process per host that drives all of that host's devices (a second JAX
+process on a card would fail for want of memory), every process
+contributes its local devices to one global mesh, and the jitted sharded
+matcher from dist/sharding.py runs unchanged — collectives go over
+NVLink within a host and the network across hosts.
 
 Per-host corpus feeding: each process places only its own shard slice
 (`host_shard_slice`) and the global array is assembled logically via

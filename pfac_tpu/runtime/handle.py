@@ -9,12 +9,12 @@ Mode mapping from the reference:
 
 * `PFAC_setPlatform(GPU/CPU/CPU_OMP)`  ->  Platform.DEVICE / CPU / CPU_PARALLEL
   (DEVICE = the accelerator JAX default backend; CPU = serial NumPy golden
-  model; CPU_PARALLEL = the same XLA program jit-compiled for the host CPU —
-  the TPU-native analog of the OpenMP backend.)
+  model; CPU_PARALLEL = the XLA walker jit-compiled for the host CPU, the
+  analog of the OpenMP backend.)
 * `PFAC_setPerfMode(TIME/SPACE_DRIVEN)` ->  PerfMode.DENSE / HASH
 * `PFAC_setTextureMode(AUTO/ON/OFF)`    ->  PlacementMode.AUTO / VMEM / HBM
-  (texture binding is a GPU notion; the TPU analog is whether the Pallas
-  kernel keeps the transition table resident in VMEM or gathers from HBM.)
+  (accepted and validated for API parity; the engine is chosen from the
+  platform alone, see `_build_engine`.)
 """
 from __future__ import annotations
 
@@ -40,12 +40,17 @@ class PerfMode(enum.IntEnum):
 
 
 class PlacementMode(enum.IntEnum):
+    """The reference's texture mode. Kept for API parity; no engine reads it."""
+
     AUTO = 0  # reference: PFAC_AUTOMATIC (default)
     VMEM = 1  # reference: PFAC_TEXTURE_ON
     HBM = 2   # reference: PFAC_TEXTURE_OFF
 
 
 class Backend(enum.Enum):
+    """GOLDEN runs the host oracle; every other value means the device
+    engine for the platform (XLA and PALLAS are kept as accepted names)."""
+
     AUTO = "auto"
     XLA = "xla"
     PALLAS = "pallas"
@@ -109,9 +114,8 @@ class Matcher:
 
     # -------------------------------------------------------------- match
     #: device engines address positions as int32; larger inputs stream.
-    #: Must not exceed SieveMatcher._dispatch's position-range guard
-    #: ((1 << 31) - (1 << 22)) or near-2GiB inputs would error instead
-    #: of streaming.
+    #: Equals gpu_walk.MAX_INPUT_BYTES (the margin under 2**31 covers the
+    #: kernel's reads past the last position).
     _CHUNK_LIMIT = (1 << 31) - (1 << 22)
 
     def match(self, data) -> np.ndarray:
@@ -164,17 +168,6 @@ class Matcher:
     def match_reduce_device(self, data_u8):
         return self._engine().match_reduce_device(data_u8)
 
-    def flush_checks(self) -> None:
-        """Validate any deferred device-path error flags (one device sync).
-
-        Engines that defer overflow checking (the Pallas sieve) raise
-        PfacError here if a previously returned device result was
-        incomplete; engines without deferred state are a no-op."""
-        for eng in self._engines.values():
-            flush = getattr(eng, "flush_checks", None)
-            if flush is not None:
-                flush()
-
     def stream(self, *, min_batch: int = 1 << 20):
         """A StreamMatcher over this handle: exact chunked matching with
         carry-over across chunk boundaries (see runtime/stream.py)."""
@@ -191,7 +184,7 @@ class Matcher:
 
     # ------------------------------------------------------------ engines
     def _engine(self):
-        key = (self.platform, self.perf_mode, self.backend, self.placement)
+        key = (self.platform, self.perf_mode, self.backend == Backend.GOLDEN)
         eng = self._engines.get(key)
         if eng is None:
             eng = self._build_engine()
@@ -225,21 +218,25 @@ class Matcher:
 
             return _GoldenEngine(self.automaton, mode)
 
-        if backend in (Backend.AUTO, Backend.PALLAS) and self.platform == Platform.DEVICE:
-            from ..backends import pallas as pallas_backend
-            eng = pallas_backend.try_build(
-                self.automaton, mode, placement=self.placement,
-                tile=self.tile, device=device,
-                required=(backend == Backend.PALLAS),
-            )
-            if eng is not None:
-                return eng
+        if _device_platform(device) == "gpu":
+            from ..backends.gpu_walk import GpuWalkMatcher
+            return GpuWalkMatcher(self.automaton, perf_mode=mode, device=device)
 
         from ..backends.xla import DEFAULT_TILE, XlaMatcher
         return XlaMatcher(
             self.automaton, perf_mode=mode,
             tile=self.tile or DEFAULT_TILE, device=device,
         )
+
+
+def _device_platform(device) -> str:
+    """Platform of the device an engine will run on (JAX's default
+    backend when no device is given)."""
+    if device is not None:
+        return device.platform
+    import jax
+
+    return jax.default_backend()
 
 
 def _coerce(enum_cls, v):

@@ -27,7 +27,7 @@ from ..status import PfacError, PfacStatus
 
 class StreamMatcher:
     """Wraps any matcher exposing ``match(bytes) -> np.ndarray`` and
-    ``automaton.max_pattern_len`` (Matcher, SieveMatcher, XlaMatcher...)."""
+    ``automaton.max_pattern_len`` (Matcher, GpuWalkMatcher, XlaMatcher...)."""
 
     def __init__(self, matcher, *, min_batch: int = 1 << 20):
         self.matcher = matcher

@@ -1,4 +1,4 @@
-"""Status codes and error strings for the PFAC-TPU framework.
+"""Status codes and error strings for the pfac-tpu framework.
 
 Mirrors the reference C API's error surface (reference: PFAC/include/PFAC.h:57-70,
 PFAC/src/PFAC.cpp:1131-1183) while also exposing idiomatic Python exceptions.

@@ -2,7 +2,7 @@
 import numpy as np
 import pytest
 
-from pfac_tpu.core import chd, native
+from pfac_tpu.core import native
 from pfac_tpu.core.automaton import Automaton
 from pfac_tpu.core.parser import parse_pattern_bytes
 from pfac_tpu.core.trie import build_trie
@@ -62,19 +62,3 @@ class TestNativeCompile:
         assert (Automaton._from_native(data).dump_transition_table()
                 == _python_automaton(data).dump_transition_table())
 
-
-class TestNativeChd:
-    @pytest.mark.parametrize("n", [10, 500, 2000])
-    def test_bit_identical_tables(self, n, monkeypatch):
-        rng = np.random.default_rng(n)
-        keys = rng.choice(1 << 20, size=n, replace=False).astype(np.uint32)
-        t_nat = chd.build_resid(keys)
-
-        # force the Python path and compare
-        monkeypatch.setattr(native, "chd_assign", lambda *a, **k: NotImplemented)
-        t_py = chd.build_resid(keys)
-        assert t_nat.num_slots == t_py.num_slots
-        assert t_nat.num_buckets == t_py.num_buckets
-        assert t_nat.salt == t_py.salt
-        assert np.array_equal(t_nat.disp, t_py.disp)
-        assert np.array_equal(t_nat.slot_words, t_py.slot_words)

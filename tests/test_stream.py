@@ -35,6 +35,27 @@ class TestStreamMatcher:
         exp = golden.match_dense(a, data)
         assert np.array_equal(got, exp)
 
+    @pytest.mark.parametrize("perf_mode", ["dense", "hash"])
+    def test_over_the_gpu_kernel(self, perf_mode):
+        # uneven chunks through the GPU walk kernel (interpreted here)
+        from pfac_tpu import StreamMatcher
+        from pfac_tpu.backends.gpu_walk import GpuWalkMatcher
+
+        rng = np.random.default_rng(9)
+        a = Automaton.from_patterns([b"ab", b"abcab", b"cc", b"bcabca"])
+        eng = GpuWalkMatcher(a, perf_mode=perf_mode, interpret=True)
+        data = bytes(rng.integers(97, 100, size=3000).astype(np.uint8))
+        cuts = [0, 1, 700, 701, 1900, 3000]
+        sm = StreamMatcher(eng, min_batch=256)
+        got = np.zeros(len(data), np.int32)
+        for lo, hi in zip(cuts, cuts[1:]):
+            start, ids = sm.feed(data[lo:hi])
+            got[start:start + ids.shape[0]] = ids
+        start, ids = sm.finish()
+        got[start:start + ids.shape[0]] = ids
+        assert start + ids.shape[0] == len(data)
+        assert np.array_equal(got, golden.match_dense_batch(a, data))
+
     def test_match_straddles_every_boundary(self):
         pats = [b"HELLOWORLD"]
         a = Automaton.from_patterns(pats)

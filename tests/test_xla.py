@@ -111,8 +111,7 @@ class TestXlaReduce:
 
 class TestPrefix1d:
     """xla._prefix_1d must be exactly jnp.cumsum for flag-like inputs —
-    it replaces the corpus-sized cumsum inside every reduce path (the
-    reduce-window lowering costs O(n log n) HBM passes on TPU)."""
+    it replaces the corpus-sized cumsum inside every reduce path."""
 
     @pytest.mark.parametrize(
         "n", [1, 127, 128, 129, 1 << 14, (1 << 14) + 1, (1 << 17) + 77])
